@@ -1,4 +1,4 @@
-"""alignment_algos_tpu — a TPU-native protein sequence-structure alignment engine.
+"""alignment_algos_tpu — an exact protein sequence-structure alignment engine in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the
 HMAP2.1 C++ library (christang/alignment-algos): generic dynamic-programming
@@ -12,7 +12,7 @@ Layout
 utils/      config stack (ParamStore / RCfile / Argv equivalents), math helpers
 seq/        sequence model (AA, HMAP profile, SMAP structure profile, flags)
 scoring/    evaluators (BLOSUM substitution, HMAP, HMAP2, GN2, GNOALI)
-ops/        TPU compute kernels (exact general-gap DP, batched affine Pallas DP)
+ops/        device engines (exact general-gap DP, batched affine SW, the Triton screen kernel)
 core/       DP matrix orchestration, alignments, enumerators
 structure/  PDB parsing + derived structural features (replaces trollbase)
 ssss/       fragment-graph near-optimal enumerator

@@ -12,8 +12,8 @@ from ..structure.smap import SMAPSequence
 
 
 def main(argv=None) -> int:
-    from ..utils.jaxenv import ensure_platform_from_env
-    ensure_platform_from_env()
+    from ..utils.jaxenv import setup_jax
+    setup_jax()
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) != 3:
         print("Usage: cn_acc_analysis <ali> <templ prof> <query prof>",

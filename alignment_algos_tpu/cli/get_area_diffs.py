@@ -9,8 +9,8 @@ from ..analysis.ali_dist import AliDist
 
 
 def main(argv=None) -> int:
-    from ..utils.jaxenv import ensure_platform_from_env
-    ensure_platform_from_env()
+    from ..utils.jaxenv import setup_jax
+    setup_jax()
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) < 2:
         print("usage: get_area_diffs <pir batch> <native fasta>", file=sys.stderr)

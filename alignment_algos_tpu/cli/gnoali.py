@@ -25,8 +25,8 @@ from ..utils.params import (ApplicationParams, Argv, OutputFormat, RCfile,
 
 
 def main(argv=None) -> int:
-    from ..utils.jaxenv import ensure_platform_from_env
-    ensure_platform_from_env()
+    from ..utils.jaxenv import setup_jax
+    setup_jax()
     argv = argv if argv is not None else sys.argv[1:]
     try:
         return _run(argv)

@@ -3,12 +3,12 @@ tool; the reference is single-threaded with no screening driver,
 SURVEY.md §2.10).
 
 One query FASTA sequence is screened against every sequence of a library
-FASTA with the batched affine-gap Smith-Waterman engine, the library
-sharded over the device mesh (`parallel/screen.py`: per-shard scoring, ICI
-all-gather top-k merge with deterministic score-desc/index-asc ties).  The
-top-K hits' optimal alignments then come off the device in one
-traceback-kernel batch and are UPGMA-clustered on the reference ali_dist
-area metric over the shared query axis (BASELINE.md configs 2 and 5).
+FASTA with the batched affine-gap Smith-Waterman engines, the library
+sharded over the device mesh (`parallel/screen.py`: per-shard scoring,
+top-k merge across shards with deterministic score-desc/index-asc ties).
+The top-K hits' optimal alignments then come off the device in one
+traceback batch and are UPGMA-clustered on the reference ali_dist area
+metric over the shared query axis (BASELINE.md configs 2 and 5).
 
     aat_screen query.fa library.fa [--top_k 10] [--gap_init 11]
                [--gap_extn 1] [--SUB_MATRIX BLOSUM62]
@@ -77,8 +77,8 @@ def padded_table(bl: BlosumMatrix):
 
 
 def main(argv=None) -> int:
-    from ..utils.jaxenv import ensure_platform_from_env
-    ensure_platform_from_env()
+    from ..utils.jaxenv import setup_jax
+    setup_jax()
     argv = argv if argv is not None else sys.argv[1:]
     try:
         return _run(argv)
@@ -201,8 +201,8 @@ def _run_profiles(args, k: int, rc=None, top=None,
         factory = lambda q, t: HMAPaliEval(params)
         kind = "template"
 
-    # shard the bucket batches over the device mesh when one is available
-    # (bit-identical to single-device; parallel/screen._sharded_bucket_scores)
+    # several devices: shard the bucket batches over all of them
+    # (bit-identical to one device; parallel/screen._sharded_bucket_scores)
     import jax
 
     from ..parallel.screen import default_mesh
@@ -222,7 +222,7 @@ def _cluster_hits(q_codes, t_codes, table, gi, ge, scores, idx, names,
     (BASELINE config 2 distance matrix + config 5 clustering).
 
     Every hit's optimal local SW alignment against the query comes off the
-    device in one traceback-kernel batch (the batched analogue of
+    device in one traceback batch (the batched analogue of
     optimal.h:47-124); each alignment is a polyline over the shared query
     axis, and the hit-hit distance is Ali_Dist's exact area between the two
     polylines divided by the query length (ali_dist.cpp:160-414,633-638) —

@@ -1,7 +1,7 @@
 """DP matrix orchestration (DPMatrix in dpmatrix.h).
 
 Holds the sequences, evaluator, direction and alignment type; materializes
-the evaluator's cost model once, then runs either the TPU engine
+the evaluator's cost model once, then runs either the device engine
 (ops.dp_engine) or the host oracle (ops.dp_ref) to produce scores plus a full
 traceback.  ``reevaluate`` rebuilds the cost model and re-runs the same
 jitted kernel — the cheap-rebuild path used by gn2's iterative rounds

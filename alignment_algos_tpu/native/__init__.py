@@ -5,7 +5,7 @@ Shared objects are built on first use with the system compiler and cached
 next to the sources under a CONTENT-HASHED name (`_<name>-<sha1[:12]>.so`).
 Hashing the sources + flags into the file name makes staleness detection
 exact: a leftover .so built from older sources can never be picked up (a
-round-3 lesson — mtime comparisons are useless after `git checkout`, which
+lesson learned — mtime comparisons are useless after `git checkout`, which
 stamps every file with the same time, and a stale engine once shipped a
 segfault).  Callers fall back to their Python/numpy paths when no compiler
 is available.

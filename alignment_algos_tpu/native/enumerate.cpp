@@ -3,7 +3,7 @@
 // Python implementations in core/enumerators byte-for-byte).
 //
 // The DP scores, traceback and cost tables arrive as flat arrays from the
-// TPU engine; enumeration is an output-sensitive recursive host workload,
+// device engine; enumeration is an output-sensitive recursive host workload,
 // which is exactly where native code pays off (the reference's entire
 // runtime is C++; this module is its spiritual successor for the
 // enumeration stage).  Exposed via a C ABI for ctypes.

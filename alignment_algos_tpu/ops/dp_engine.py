@@ -1,4 +1,4 @@
-"""Vectorized general-gap DP engine (JAX/XLA, TPU-native).
+"""Vectorized general-gap DP engine (JAX/XLA).
 
 Computes the reference recurrence (dpmatrix.h:356-536) as a `lax.scan` over
 query rows: each row computes all its deletion candidates as one masked
@@ -33,14 +33,16 @@ NEG = jnp.float32(-3.0e38)
 
 
 @partial(jax.jit, static_argnames=("q0", "q1", "t0", "t1", "local",
-                                   "zero_head", "zero_tail"))
+                                   "zero_head", "zero_tail", "traceback"))
 def _dp_forward(S, D, CpadR, ins0, ins_close, *, q0: int, q1: int, t0: int,
-                t1: int, local: bool, zero_head: bool, zero_tail: bool):
-    """CpadR = host-reversed Cpad, where Cpad[(q2-1)+d, j] = insertion cost
-    for a query gap of span d ending at
-    template column j, precomputed on host with the reference's exact
-    float32 mul-then-add (no FMA contraction inside the kernel).  ins0 /
-    ins_close are the boundary-column / closing-scan cost vectors."""
+                t1: int, local: bool, zero_head: bool, zero_tail: bool,
+                traceback: bool = True):
+    """CpadR = reversed Cpad, where Cpad[(q2-1)+d, j] = insertion cost
+    for a query gap of span d ending at template column j, precomputed in
+    the reference's exact float32 mul-then-add (no FMA contraction inside
+    the kernel).  ins0 / ins_close are the boundary-column / closing-scan
+    cost vectors.  ``traceback=False`` computes H only (no argmax work)
+    and returns None for the four traceback outputs."""
     q2, t2 = S.shape
     f32 = jnp.float32
     s_init = f32(0.0)
@@ -78,15 +80,13 @@ def _dp_forward(S, D, CpadR, ins0, ins_close, *, q0: int, q1: int, t0: int,
 
         # diagonal predecessor = Hprev shifted right by one column (edge
         # duplicate matches the old clamped-index gather at j==0, which the
-        # boundary masking discards anyway); an explicit shift avoids an
-        # XLA gather, which lowers to a slow scalar loop on TPU
+        # boundary masking discards anyway)
         match = clamp(jnp.concatenate([Hprev[:1], Hprev[:-1]]) + sim)
 
         # deletion candidates: (T2, T2) over predecessor k (prev row)
         dc = clamp((Hprev[:, None] - D) + sim[None, :])
         dc = jnp.where(del_kmask, dc, NEG)
         del_max = jnp.max(dc, axis=0)
-        del_arg = jnp.argmax(dc, axis=0)
 
         # insertion candidates: (Q2, T2) over predecessor row k (col j-1);
         # cost[k, j] = Cpad[(q2-1) + i - k, j] = CpadR[(q2 - i) + k, j]
@@ -97,6 +97,10 @@ def _dp_forward(S, D, CpadR, ins0, ins_close, *, q0: int, q1: int, t0: int,
         ins_kmask = (qk[:, None] >= q0 + 1) & (qk[:, None] <= i - 2)
         ic = jnp.where(ins_kmask, ic, NEG)
         ins_max = jnp.max(ic, axis=0)
+        if not traceback:
+            best = jnp.maximum(match, jnp.maximum(del_max, ins_max))
+            return H.at[i].set(jnp.where(interior_j, best, H[i])), None
+        del_arg = jnp.argmax(dc, axis=0)
         ins_arg = jnp.argmax(ic, axis=0)
 
         best = match
@@ -118,7 +122,8 @@ def _dp_forward(S, D, CpadR, ins0, ins_close, *, q0: int, q1: int, t0: int,
 
     n_rows = max(q1 - q0 - 2, 0)
     rows = q0 + 2 + jnp.arange(n_rows)
-    H, (pq_rows, pt_rows) = jax.lax.scan(step, H0, rows)
+    H, ys = jax.lax.scan(step, H0, rows)
+    pq_rows, pt_rows = ys if traceback else (None, None)
 
     # ---- closing cell (q1, t1) ------------------------------------------
     sim_c = S[q1, t1]
@@ -127,12 +132,15 @@ def _dp_forward(S, D, CpadR, ins0, ins_close, *, q0: int, q1: int, t0: int,
     dmask = (kk >= t0 + 1) & (kk <= t1 - 1)
     dc = jnp.where(dmask, dc, NEG)
     del_max = jnp.max(dc)
-    del_arg = jnp.argmax(dc)
 
     icand = clamp((H[:, t1 - 1] - ins_close) + sim_c)
     imask = (qk >= q0 + 1) & (qk <= q1 - 1)
     icand = jnp.where(imask, icand, NEG)
     ins_max = jnp.max(icand)
+    if not traceback:
+        best = jnp.maximum(match, jnp.maximum(del_max, ins_max))
+        return H.at[q1, t1].set(best), None, None, None, None
+    del_arg = jnp.argmax(dc)
     ins_arg = jnp.argmax(icand)
 
     best = match

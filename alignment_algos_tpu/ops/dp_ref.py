@@ -12,7 +12,7 @@ strict-improvement tie-breaking:
 
 Arithmetic is float32 with the reference's operation order
 (s = H[pred]; s -= gap; s += sim).  This module is the correctness oracle
-for the vectorized TPU engine in dp_engine.py and the host fallback for tiny
+for the vectorized device engine in dp_engine.py and the host fallback for tiny
 problems.  Computed cells outside the built region keep score 0 and null
 (-1) traceback, as in the reference.
 """

@@ -5,9 +5,10 @@ Why this exists: the reference's similarity pipelines call libm float
 transcendentals (``exp(float)`` in hmap_eval.h:56-60 resolves to glibc
 expf) and rely on IEEE f32 division/sqrt (hmath.h norm_elements), and the
 framework's parity contract is BIT equality with the compiled reference.
-On this TPU, XLA's f32 divide and sqrt are not correctly rounded and its
-exp is nowhere near libm (probed: ~35% of divides differ in the last
-bit), while uint32 multiply / add / shifts ARE exact.  So the device
+Under XLA:GPU's defaults f32 divide and sqrt are not correctly rounded
+(on an H100, 38% of a million random divides and 17% of square roots
+differ in the last bit; docs/DECISIONS.md) and exp is nowhere near
+libm, while uint32 multiply / add / shifts ARE exact.  So the device
 similarity producer (ops/hmap_device) computes every non-trivially-
 roundable operation in integer arithmetic:
 
@@ -32,7 +33,7 @@ validation against the live libm over the full f32 domain |x| <= 8 is in
 tools/validate_expf.py; sampled validation runs in tests/test_sf64.py.
 
 All functions are elementwise over same-shape jnp arrays and jit/fuse
-cleanly on CPU and TPU backends (pure uint32/int32 lane arithmetic).
+cleanly on the CPU and GPU backends (pure uint32/int32 arithmetic).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def bits_f32(b):
 
 
 def nofma(x, z):
-    """Defeat XLA:CPU's fmuladd contraction of add(mul(a,b), c).
+    """Defeat fmuladd contraction of add(mul(a,b), c).
 
     XLA's CPU emitter lowers a multiply feeding an add inside one fusion
     to llvm.fmuladd, which x86 fuses into a single-rounding FMA — a
@@ -61,8 +62,10 @@ def nofma(x, z):
     barriers are stripped before fusion and do not help; measured).  A
     round-trip through an integer xor with a TRACED zero (``z`` must be
     a runtime argument, never a literal, or it constant-folds away)
-    breaks the pattern without changing the value.  XLA:TPU does not
-    contract, but the guard keeps semantics identical on all backends."""
+    breaks the pattern without changing the value.  XLA:GPU left a plain
+    a*b+c uncontracted on the H100 (docs/DECISIONS.md), but ptxas may
+    fuse a mul.f32/add.f32 pair, so every site that must round twice
+    keeps the guard on every backend."""
     return bits_f32(f32_bits(x) ^ z)
 
 

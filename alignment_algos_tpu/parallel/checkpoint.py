@@ -4,7 +4,7 @@ every run rebuilds all state from input files).
 
 A production screen walks a template library far larger than device memory
 in chunks; losing a multi-hour sweep to a preemption is unacceptable on
-shared TPU pods.  This module makes the sweep restartable: after each chunk
+shared accelerators.  This module makes the sweep restartable: after each chunk
 the running global top-k and the set of completed chunks are written
 atomically (tmp + rename) to a single ``.npz``.  Resuming skips completed
 chunks and reproduces bit-identical results, because the merge is the same
@@ -76,7 +76,6 @@ class ScreenCheckpoint:
 def screen_library_checkpointed(q_codes, t_codes, table, gi: float, ge: float,
                                 k: int = 10, chunk_size: int = 1024,
                                 ckpt_path: str = "", mesh=None,
-                                use_pallas: bool | None = None,
                                 max_chunks: int | None = None,
                                 engine: str | None = None):
     """Resumable chunked screen of one query against a template library.
@@ -107,7 +106,7 @@ def screen_library_checkpointed(q_codes, t_codes, table, gi: float, ge: float,
         lo, hi = c * chunk_size, min((c + 1) * chunk_size, n)
         scores, idx = screen_library(q_codes, t_codes[lo:hi], table, gi, ge,
                                      k=min(k_eff, hi - lo), mesh=mesh,
-                                     use_pallas=use_pallas, engine=engine)
+                                     engine=engine)
         ckpt.record(c, scores.astype(np.float32), idx.astype(np.int64) + lo)
         processed += 1
 

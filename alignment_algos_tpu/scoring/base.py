@@ -3,7 +3,7 @@
 The reference dispatches scoring through a CRTP ``Evaluator`` with five hooks
 (similarity / deletion / insertion / pre_calculate / post_process,
 evaluator.h:20-97) called per candidate cell inside the O(Q*T*(Q+T)) DP loop.
-The TPU-native design instead asks each evaluator to *materialize* its cost
+This design instead asks each evaluator to *materialize* its cost
 model once as dense arrays (a similarity matrix, a template-pair deletion
 table, and per-column affine insertion coefficients); the DP kernels then
 consume only arrays.  This covers every reference evaluator exactly:

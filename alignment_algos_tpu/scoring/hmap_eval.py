@@ -7,7 +7,7 @@ gap_init/extn scaled by exp(beta * (1 - 1.25 * p_coil)); gap cost uses the
 min of the two flanking residues' values.  post_process z-normalizes the
 whole similarity region then subtracts zero_shift (hmap_eval.cpp:47-51).
 
-The TPU formulation: the similarity matrix is one (Q,20)x(20,T) matmul plus
+The array formulation: the similarity matrix is one (Q,20)x(20,T) matmul plus
 one (Q,3)x(3,T) z-scored matmul for the Pearson term.
 """
 

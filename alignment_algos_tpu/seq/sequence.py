@@ -4,7 +4,7 @@ Mirrors sequence.{h,cpp} / aa_seq.{h,cpp} semantics — every sequence is
 bracketed by a Head sentinel ``^`` at index 0 and a Tail sentinel ``$`` at
 index N+1, and all DP indices are 1-based over the real residues — but is
 arrays-first: per-position features live in numpy arrays (structure-of-arrays)
-so they can be shipped to the TPU directly, instead of vectors of element
+so they can be shipped to the device directly, instead of vectors of element
 objects.
 """
 

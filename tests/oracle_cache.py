@@ -1,7 +1,7 @@
 """Content-keyed cache for reference-oracle outputs.
 
 The S4 oracle's slowest case runs within ~80% of its subprocess budget on
-an idle machine; under concurrent suite load it times out (round-3 verdict,
+an idle machine; under concurrent suite load it times out (observed,
 weak item 1).  The oracle's output is a pure function of (reference
 sources, oracle driver source, stdin dump, argv), so it is cached as a
 regenerable golden in tests/golden/oracle_cache/ keyed by a hash of all

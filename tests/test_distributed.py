@@ -3,7 +3,7 @@ the sharded library screen over a global mesh spanning 2 and 4 processes
 must return bit-identical results to the single-process path.
 
 This is the honest pod stand-in available without multi-host hardware
-(BASELINE.md scaling north star; VERDICT round-1 item 2)."""
+(BASELINE.md scaling north star)."""
 
 import numpy as np
 import pytest
@@ -31,7 +31,7 @@ def test_multiprocess_screen_bit_identical(num_processes,
     # single-process reference on a virtual mesh of the same total size
     mesh = default_mesh(num_processes * devices_per_process)
     ref_scores, ref_idx = screen_library(q, lib, table, 11.0, 1.0, k=K,
-                                         mesh=mesh, use_pallas=False)
+                                         mesh=mesh, engine="xla")
 
     results = launch_local_screen(q, lib, table, 11.0, 1.0, K,
                                   num_processes=num_processes,

@@ -79,7 +79,7 @@ def test_get_shifts_tables_byte_equal(fixtures):
 
 @pytest.fixture(scope="module")
 def fixtures_real(tmp_path_factory):
-    """Realistic-scale inputs (VERDICT r2 item 5): a PIR batch from our gn2
+    """Realistic-scale inputs: a PIR batch from our gn2
     CLI at HMAPRC production parameters on the 222-res fixture, measured
     against the optimal Hmap2 alignment as native."""
     tmp = tmp_path_factory.mktemp("gs_real")

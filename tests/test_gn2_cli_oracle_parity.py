@@ -54,7 +54,7 @@ PRODUCTION = ["--NUM_SUBOPT", "1000", "--DELTA_RATIO", "0.20",
               "--ALIGN_MODE", "4"]
 
 # realistic-scale battery: the 222-residue pathological fixture + 180-res
-# homologous query (VERDICT r2 item 5).  Wall time of the whole real-scale
+# homologous query.  Wall time of the whole real-scale
 # battery is recorded in docs/SCALING.md.
 GN2_REAL_CASES = [
     ["-opt"],

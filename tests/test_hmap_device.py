@@ -3,8 +3,8 @@
 The producer must rebuild HMAPaliEval.build_costs's z-normalized,
 shifted similarity BIT-IDENTICALLY on device from per-sequence payloads
 (no Q*T host->device transfer).  These tests run on the CPU backend —
-the producer is backend-independent integer/f32 arithmetic, and the real
-chip is gated separately in tests/test_tpu_hardware.py."""
+the producer is backend-independent integer/f32 arithmetic; the GPU runs
+the same checks in tests/test_gpu.py and chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -91,7 +91,7 @@ def test_similarity_no_normalize():
 
 def test_screen_scores_match_host_path():
     """End-to-end: device-produced S through the exact engine equals the
-    host screen_profiles scores bitwise (CPU backend -> xla engine)."""
+    host screen_profiles scores bitwise."""
     from alignment_algos_tpu.parallel.screen import screen_profiles
 
     rng = np.random.default_rng(9)
@@ -101,9 +101,9 @@ def test_screen_scores_match_host_path():
 
     host_scores, host_order = screen_profiles(
         query, templates, lambda q, t: HMAPaliEval(params), k=4,
-        engine="xla")
+        engine="host")
     dev_scores, dev_order = hmap_device.screen_hmap_device(
-        query, templates, params, k=4, engine="xla")
+        query, templates, params, k=4)
     assert (dev_scores.view(np.uint32)
             == host_scores.astype(np.float32).view(np.uint32)).all()
     assert (dev_order == host_order).all()
@@ -117,9 +117,8 @@ def test_mixed_lengths_bucketing():
         + _profiles(rng, 1, 28)
     from alignment_algos_tpu.parallel.screen import screen_profiles
     host_scores, _ = screen_profiles(q, ts, lambda a, b: HMAPaliEval(params),
-                                     k=5, engine="xla")
-    dev_scores, _ = hmap_device.screen_hmap_device(q, ts, params, k=5,
-                                                   engine="xla")
+                                     k=5, engine="host")
+    dev_scores, _ = hmap_device.screen_hmap_device(q, ts, params, k=5)
     assert (dev_scores.view(np.uint32)
             == host_scores.astype(np.float32).view(np.uint32)).all()
 
@@ -140,9 +139,9 @@ def test_hmap2_smap_screen_parity():
     params = Gn2Params()
     host_scores, host_order = screen_profiles(
         query, [templ, templ], lambda q, t: Hmap2Eval(params), k=2,
-        engine="xla")
+        engine="host")
     dev_scores, dev_order = hmap_device.screen_hmap_device(
-        query, [templ, templ], params, k=2, engine="xla",
+        query, [templ, templ], params, k=2,
         ev=Hmap2Eval(params))
     assert (dev_scores.view(np.uint32)
             == host_scores.astype(np.float32).view(np.uint32)).all()

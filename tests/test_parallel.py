@@ -230,3 +230,86 @@ def test_smap_screen_sharded_bit_equal():
     mesh = default_mesh(2)
     scores, _ = screen_profiles(query, lib, factory, k=3, mesh=mesh)
     np.testing.assert_array_equal(scores, single_scores)
+
+
+# ---------------------------------------------------------------------------
+# meshes and the engine rule
+
+
+def test_default_mesh_raises_on_too_few_devices():
+    with pytest.raises(ValueError, match="need 16 devices, have 8"):
+        default_mesh(16)
+
+
+def test_grid_mesh_raises_on_too_few_devices():
+    from alignment_algos_tpu.parallel.screen import grid_mesh
+    with pytest.raises(ValueError, match="need 12 devices"):
+        grid_mesh((3, 4))
+    assert grid_mesh((2, 4)).devices.shape == (2, 4)
+
+
+def test_engine_rule_keys_on_mesh_platform():
+    from alignment_algos_tpu.parallel import screen as ps
+    from alignment_algos_tpu.scoring.gn2_eval import Gn2Eval, Gn2Params
+    from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu.utils.params import HMAPaliParams
+
+    cpu = default_mesh(2)
+    assert not ps.on_gpu(cpu)
+    assert ps.pick_engine(cpu, 11.0, 1.0) == "xla"
+    assert ps.profile_engine(default_mesh(1),
+                             HMAPaliEval(HMAPaliParams())) == "host"
+
+    class FakeGpu:
+        platform = "gpu"
+
+    class FakeMesh:
+        def __init__(self, n):
+            self.devices = np.array([FakeGpu()] * n)
+
+    assert ps.pick_engine(FakeMesh(1), 11.0, 1.0) == "triton"
+    assert ps.pick_engine(FakeMesh(4), 4.73, 0.34) == "triton"
+    assert ps.pick_engine(FakeMesh(1), -1.0, 1.0) == "xla"
+    assert ps.profile_engine(FakeMesh(1),
+                             HMAPaliEval(HMAPaliParams())) == "device"
+    assert ps.profile_engine(FakeMesh(4),
+                             HMAPaliEval(HMAPaliParams())) == "host"
+    assert ps.profile_engine(FakeMesh(1), Gn2Eval(Gn2Params())) == "host"
+
+
+def test_unknown_engines_rejected(inputs):
+    from alignment_algos_tpu.parallel.screen import screen_profiles
+    q, lib, table = inputs
+    with pytest.raises(ValueError, match="unknown screen engine"):
+        screen_library(q, lib, table, 11.0, 1.0, engine="pallas")
+    with pytest.raises(ValueError, match="unknown profile engine"):
+        screen_profiles(None, [None], lambda a, b: None, engine="pallas")
+
+
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_sharded_strip_kernel_matches_host(inputs, ndev):
+    """The GPU engine's sharded path (shard_map over the library, the
+    Triton kernel per shard) rehearsed on virtual CPU devices with the
+    kernel in the Pallas interpreter."""
+    q, lib, table = inputs
+    s, i = screen_library(q, lib, table, 11.0, 1.0, k=9,
+                          mesh=default_mesh(ndev), engine="triton")
+    s_host, i_host = screen_library_host(q, lib, table, 11.0, 1.0, k=9)
+    np.testing.assert_array_equal(i, i_host)
+    np.testing.assert_array_equal(s, s_host)
+
+
+def test_screen_grid_strip_kernel_2x2(inputs):
+    from alignment_algos_tpu.parallel.screen import grid_mesh, screen_grid
+    q, lib, table = inputs
+    qs = np.stack([q, (q + 3) % 20, (q + 7) % 20])
+    sc, ts, ti = screen_grid(qs, lib, table, 11.0, 1.0, k=4,
+                             mesh=grid_mesh((2, 2)), engine="triton")
+    ref, _, _ = screen_grid(qs, lib, table, 11.0, 1.0, k=4,
+                            mesh=grid_mesh((1, 1)), engine="xla")
+    np.testing.assert_array_equal(sc, ref)
+    for r in range(len(qs)):
+        s_host, i_host = screen_library_host(qs[r], lib, table, 11.0, 1.0,
+                                             k=4)
+        np.testing.assert_array_equal(ti[r], i_host)
+        np.testing.assert_array_equal(ts[r], s_host)

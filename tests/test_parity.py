@@ -30,7 +30,6 @@ pytestmark = pytest.mark.skipif(not os.path.isdir(GOLD),
 def run_mine(module: str, args: list[str]) -> str:
     env = dict(os.environ)
     env.setdefault("JAX_PLATFORMS", "cpu")
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
     env.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
     env.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
     env["HOME"] = "/tmp/nonexistent-home"  # no ~/.hmaprc

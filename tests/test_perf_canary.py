@@ -1,4 +1,4 @@
-"""Loose CPU-side performance floors (round-4 verdict weak #7).
+"""Loose CPU-side performance floors.
 
 The parity suites pin correctness but nothing pinned speed: a silent 2x
 regression in a hot engine would pass every test.  These canaries assert

@@ -1,6 +1,5 @@
-"""Functional checks for utils/profiling (round-4 verdict weak #5: the
-module was smoke-tested only — nothing asserted a trace file actually
-appears or that the CUPS math holds)."""
+"""Functional checks for utils/profiling: a trace file actually appears
+and the CUPS math holds."""
 
 from __future__ import annotations
 

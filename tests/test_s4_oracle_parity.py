@@ -49,7 +49,7 @@ FIXTURES = {
     "small": ("templ_smap.prof", "query30.prof"),
     "big": ("templ_big.prof", "query_big.prof"),
     # 222-res deposited-style pathological PDB + homologous 180-res query
-    # (tools/make_smap_fixture.make_fixture_real; VERDICT r1 item 6)
+    # (tools/make_smap_fixture.make_fixture_real)
     "real": ("templ_real.prof", "query_real.prof"),
 }
 
@@ -66,7 +66,7 @@ def dumps():
 def run_reference(mode: str, extra: list[str], dump: str) -> str:
     # content-keyed golden cache: the slowest case needs ~80% of a 300 s
     # budget on an idle machine and times out under concurrent suite load
-    # (round-3 verdict); replaying the recorded output makes pass/fail
+    # (observed); replaying the recorded output makes pass/fail
     # load-independent while any source/fixture change still re-runs
     from oracle_cache import cached_run
     return cached_run(

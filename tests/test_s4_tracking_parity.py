@@ -38,7 +38,7 @@ FIXTURES = {
     "small": ("templ_smap.prof", "query30.prof"),
     "big": ("templ_big.prof", "query_big.prof"),
     # 222-res deposited-style pathological PDB + homologous 180-res query
-    # (tools/make_smap_fixture.make_fixture_real; VERDICT r1 item 6)
+    # (tools/make_smap_fixture.make_fixture_real)
     "real": ("templ_real.prof", "query_real.prof"),
 }
 

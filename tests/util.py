@@ -13,7 +13,9 @@ F32 = np.float32
 
 
 def random_costs(rng, q2: int, t2: int, align_type=AlignT.GLOBAL,
-                 zero_flags=False) -> DPCosts:
+                 zero_flags=False, vectors=False) -> DPCosts:
+    """Random cost model; ``vectors`` also records the per-position gap
+    vectors D was built from (the device-rebuild path of ops/dp_scores)."""
     S = rng.standard_normal((q2, t2)).astype(np.float32) * F32(2.0)
     S[0, :] = 0
     S[-1, :] = 0
@@ -26,8 +28,11 @@ def random_costs(rng, q2: int, t2: int, align_type=AlignT.GLOBAL,
     D = affine_deletion_table(gi_pair, ge_pair, align_type)
     A = np.minimum(gi, np.roll(gi, 1)).astype(np.float32)
     B = np.minimum(ge, np.roll(ge, 1)).astype(np.float32)
+    vec = dict(del_gi_vec=gi, del_ge_vec=ge, del_align=AlignT(align_type)) \
+        if vectors else {}
     return DPCosts(S=S, D=D, A=A, B=B,
-                   ins_zero_head_q=zero_flags, ins_zero_tail_q=zero_flags)
+                   ins_zero_head_q=zero_flags, ins_zero_tail_q=zero_flags,
+                   **vec)
 
 
 def brute_force_dp(c: DPCosts, q0, q1, t0, t1, local=False):

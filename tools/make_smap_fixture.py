@@ -99,7 +99,7 @@ def make_fixture_real(out_dir: str, seed: int = 23):
     deposited-style PDB (altLocs, insertion code, author-numbering break,
     MSE HETATM, missing atoms, second chain, waters/ligand — see
     make_pdb.write_pdb_real) plus matching SMAP template and 180-residue
-    query profiles.  VERDICT round-1 item 6: the reference was built for
+    query profiles.  The reference was built for
     real proteins (gn2lib_seq.cpp:96-201); this is the at-scale battery
     input."""
     rng = np.random.default_rng(seed)

@@ -9,9 +9,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from alignment_algos_tpu.utils.jaxenv import ensure_platform_from_env
+from alignment_algos_tpu.utils.jaxenv import setup_jax
 
-ensure_platform_from_env()
+setup_jax()
 
 from alignment_algos_tpu.core.alignment import AlignmentSet
 from alignment_algos_tpu.core.dp import DPMatrix
